@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Streaming benchmark: repeated disparity over the testdata pairs.
+"""Streaming benchmark: repeated disparity over seeded fixture pairs
+(``utils/fixtures.py``, 640x480, seeds 0-3).
 
 Parity with ``examples/run.stream.go:27-69`` (10-iteration loop printing
 per-frame elapsed time), extended with throughput stats.
@@ -14,11 +15,8 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 import numpy as np
 
 from steroscopic_hardware_tpu.models.blockmatch import BlockMatcher
-from steroscopic_hardware_tpu.ops.gray import load_gray
+from steroscopic_hardware_tpu.utils.fixtures import VGA, stereo_pair
 from steroscopic_hardware_tpu.utils.params import Parameters
-
-TESTDATA = "/root/reference/testdata"
-PAIRS = ["00001", "00002", "00335", "01000"]
 
 
 def main():
@@ -28,11 +26,7 @@ def main():
     ap.add_argument("--disp", type=int, default=64)
     args = ap.parse_args()
 
-    frames = [
-        (load_gray(f"{TESTDATA}/L_{p}.png"),
-         load_gray(f"{TESTDATA}/R_{p}.png"))
-        for p in PAIRS
-    ]
+    frames = [stereo_pair(VGA, seed)[:2] for seed in range(4)]
     m = BlockMatcher(params=Parameters(args.block, args.disp))
     m.compute(*frames[0])  # compile
 

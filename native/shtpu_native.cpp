@@ -1,6 +1,6 @@
 // shtpu_native — host-side native runtime for steroscopic_hardware_tpu.
 //
-// TPU-native equivalent of the reference's host/embedded native tier:
+// Native equivalent of the reference's host/embedded native tier:
 //   * PNG scanline unfilter   (hot path of image decode; the reference relies
 //     on Go's image/png, pkg/despair/png.go:10-53)
 //   * stereo frame wire protocol (start 0xFF 0xD8 / ack 0x01 / stop 0xFF 0xD9,

@@ -1,11 +1,11 @@
-"""steroscopic_hardware_tpu — a TPU-native stereo depth + SLAM engine.
+"""steroscopic_hardware_tpu — a stereo depth + SLAM engine in JAX.
 
-A brand-new framework (JAX/XLA/Pallas/pjit) with the full capabilities of the
-reference project ``conneroisu/steroscopic-hardware`` (a Go + Zedboard-FPGA
-real-time stereoscopic depth-mapping system), redesigned TPU-first:
+A framework (JAX/XLA/Pallas) with the full capabilities of the reference
+project ``conneroisu/steroscopic-hardware`` (a Go + Zedboard-FPGA real-time
+stereoscopic depth-mapping system), redesigned for an accelerator:
 
 - ``ops``      — compute kernels: SAD cost-volume disparity (golden, XLA, and
-                 fused Pallas TPU paths), grayscale conversion, left-right
+                 a Pallas GPU kernel), grayscale conversion, left-right
                  consistency, features/matching.
 - ``models``   — user-facing model families: block-matching disparity engine,
                  stereo visual odometry, SLAM.
@@ -14,10 +14,11 @@ real-time stereoscopic depth-mapping system), redesigned TPU-first:
 - ``runtime``  — streaming runtime replacing the reference's Go webserver:
                  frame sources, in-memory frame bus, camera manager, HTTP API.
 - ``io``       — PNG/PGM codecs, LZMA frame compression.
-- ``utils``    — parameter validation, timing, metrics, logging.
+- ``utils``    — parameter validation, backend choice, seeded fixtures,
+                 timing, logging.
 
-Reference parity anchors are cited throughout as ``file:line`` of
-``/root/reference`` (e.g. ``pkg/despair/sad.go:205-244``).
+Reference parity anchors are cited throughout as ``file:line`` of the
+reference repository (e.g. ``pkg/despair/sad.go:205-244``).
 """
 
 from steroscopic_hardware_tpu.version import __version__

@@ -42,7 +42,7 @@ def run_sad(left, right, block_size: int | None = None,
             max_disparity: int | None = None) -> np.ndarray:
     """Full-frame uint8 disparity (RunSad, pkg/despair/sad.go:119-169).
 
-    Uses the TPU Pallas kernel on TPU and the XLA path elsewhere.
+    Uses the Pallas kernel on a GPU and the XLA path on the CPU.
     """
     from steroscopic_hardware_tpu.models.blockmatch import BlockMatcher
 

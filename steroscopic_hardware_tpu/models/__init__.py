@@ -2,8 +2,8 @@
 SLAM.
 
 Importing this package raises the default matmul precision to "highest":
-on TPU, f32 matmuls otherwise run through bf16 passes, which destabilizes
-the geometry solvers (PnP/BA Gauss-Newton normal equations) into NaNs.
+f32 matmuls may otherwise run in reduced precision (TF32 on a GPU), which
+destabilizes the geometry solvers (PnP/BA Gauss-Newton normal equations) into NaNs.
 The integer disparity kernels are unaffected, and the descriptor-matching
 matmul is exact either way (+-1 inputs, f32 accumulation).
 """

@@ -2,7 +2,7 @@
 complement reduction.
 
 Dense windowed BA over M keyframe poses and N landmarks with a (M, N)
-visibility mask — the TPU-friendly layout (static shapes; masked
+visibility mask — the accelerator-friendly layout (static shapes; masked
 observations instead of sparse indexing). The normal equations are reduced
 by the classic Schur complement over the block-diagonal landmark system:
 
@@ -10,7 +10,7 @@ by the classic Schur complement over the block-diagonal landmark system:
         [ Hpl' Hll ]    dl = Hll^-1 (bl - Hpl^T dp)   (landmark back-subst.)
 
 Hpp is (M, 6, 6) block-diagonal, Hll is (N, 3, 3) block-diagonal, and every
-contraction is an einsum that XLA maps onto the MXU. Gauge freedom is fixed
+contraction is an einsum that XLA maps onto the matrix units. Gauge freedom is fixed
 by freezing the first pose. Levenberg damping + Huber reweighting.
 
 This single-host window solver is the building block for the distributed

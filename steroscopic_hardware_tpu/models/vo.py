@@ -2,7 +2,7 @@
 vectorized RANSAC, and the frame-to-frame VO loop.
 
 New scope over the reference per the BASELINE north star ("FAST+ORB
-matching + PnP + sliding-window BA"). TPU-first design: fixed-K keypoint
+matching + PnP + sliding-window BA"). Accelerator-first design: fixed-K keypoint
 sets with validity masks, RANSAC hypotheses evaluated as one vmapped
 batch, Gauss-Newton iterations as ``lax.scan`` bodies with autodiff
 jacobians — no data-dependent control flow.

@@ -4,14 +4,14 @@ The exhaustive loop-closure search matches the newest keyframe against
 every past keyframe — O(N) jitted matcher dispatches per keyframe, which
 dominates once trajectories get long (ROADMAP item; the reference has no
 SLAM at all, this is beyond-parity scope). This module provides the
-classic DBoW-style two-stage scheme, built TPU-first:
+classic DBoW-style two-stage scheme, built accelerator-first:
 
 * a fixed random binary vocabulary (no training pass needed — random
   256-bit words are near-orthogonal in Hamming space, the same property
   LSH relies on);
 * ``bow_vector``: quantize a keyframe's ORB descriptors to their nearest
   vocabulary word and L2-normalize the term-frequency histogram. The
-  K x V Hamming table is ONE matmul on the MXU
+  K x V Hamming table is ONE matmul
   (ham = |d| + |w| - 2 d.w for binary vectors), not K x V scalar loops;
 * ``BowIndex``: append-only database of keyframe vectors; a query scores
   the WHOLE history with one (N, V) @ (V,) matvec (cosine similarity of
@@ -41,7 +41,7 @@ def _bow_vector(desc, valid, words):
     descriptors).
     """
     d = desc.astype(jnp.float32)                       # (K, 256)
-    dots = d @ words.T                                 # (K, V) on the MXU
+    dots = d @ words.T                                 # (K, V), one matmul
     ham = d.sum(1, keepdims=True) + words.sum(1)[None, :] - 2.0 * dots
     w_idx = jnp.argmin(ham, axis=1)                    # (K,)
     onehot = jax.nn.one_hot(w_idx, words.shape[0], dtype=jnp.float32)

@@ -2,7 +2,7 @@
 
 Census is the standard illumination-robust matching cost for SGM (see
 FP-Stereo, arXiv:2006.03250, for the hardware-pipeline formulation this
-module re-designs for the VPU): each pixel is described by the sign
+module re-designs for XLA): each pixel is described by the sign
 pattern of its neighborhood, and matching cost is the Hamming distance
 between left/right census codes.
 """
@@ -65,39 +65,3 @@ def census_cost_volume(left, right, *, max_disparity: int) -> jnp.ndarray:
         return jnp.where(xs >= d, c, jnp.uint8(24))
 
     return jax.vmap(one)(jnp.arange(max_disparity + 1))
-
-
-@functools.partial(jax.jit, static_argnames=("max_disparity", "s_major"))
-def census_cost_volume_T(left, right, *, max_disparity: int,
-                         s_major: bool = False) -> jnp.ndarray:
-    """Transposed-frame cost volume: (D, W, H) uint8 with
-    ``out[d, x, y] == census_cost_volume(...)[d, y, x]`` exactly.
-
-    Built from transposed images so the disparity shift runs along the
-    SUBLANE axis instead of the lane axis — the layout the TPU horizontal
-    SGM path wants. Census codes of a transposed image are the transposed
-    codes up to a fixed bit permutation (the 5x5 offset set is symmetric
-    under (dy, dx) swap); the permutation is identical for both images, so
-    XOR + popcount Hamming costs are unchanged. The H x W uint8 image
-    transpose is ~0.1% the size of transposing the cost volume.
-
-    ``s_major=True`` emits (W, D, H) instead — the scan-major layout the
-    aggregation kernel consumes — by moving the vmap output axis, so the
-    fusion WRITES that layout directly and no 20 MB volume transpose (a
-    sublane-crossing relayout, measured ~2 ms at 640x480 D=64 on v5e when
-    it feeds a Pallas input) ever materializes.
-    """
-    cl = census5x5(left.T)
-    cr = census5x5(right.T)
-    W = left.shape[-1]
-    xs = jax.lax.broadcasted_iota(jnp.int32, (W, left.shape[-2]), 0)
-    crp = jnp.pad(cr, [(max_disparity, 0), (0, 0)])
-
-    def one(d):
-        sh = jax.lax.dynamic_slice_in_dim(crp, max_disparity - d, W, axis=0)
-        c = popcount32(cl ^ sh).astype(jnp.uint8)
-        return jnp.where(xs >= d, c, jnp.uint8(24))
-
-    return jax.vmap(one, out_axes=1 if s_major else 0)(
-        jnp.arange(max_disparity + 1)
-    )

@@ -2,13 +2,13 @@
 
 CV front-end for the stereo SLAM extension (north star scope). Everything
 is static-shape and jittable: detection returns a fixed-K top-K keypoint
-set with a validity mask (invalid slots score 0), the TPU-friendly
+set with a validity mask (invalid slots score 0), the accelerator-friendly
 equivalent of a variable-length corner list.
 
-Design notes (TPU-first):
+Design notes (accelerator-first):
   * FAST-N circle test: the 16 Bresenham-circle neighbors are materialized
-    as 16 statically shifted copies of the image (pure vector ops on the
-    VPU; no gather), and the contiguous-arc test is an unrolled AND/OR
+    as 16 statically shifted copies of the image (pure vector ops; no
+    gather), and the contiguous-arc test is an unrolled AND/OR
     reduction over the 16 cyclic windows.
   * Orientation: intensity-centroid moments over the 31x31 patch
     (box-accumulated with shifted adds).

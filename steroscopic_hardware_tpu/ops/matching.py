@@ -1,9 +1,9 @@
-"""Descriptor matching on the MXU.
+"""Descriptor matching as one matrix product.
 
 Hamming distance between binary descriptor sets via matrix multiply: with
 descriptors encoded as +/-1, ``dot(a, b) = n_bits - 2 * hamming``, so one
-(Ka, 256) x (256, Kb) matmul on the MXU yields every pairwise distance —
-the TPU-native replacement for per-pair popcount loops (values are exact:
+(Ka, 256) x (256, Kb) matmul yields every pairwise distance —
+the accelerator-native replacement for per-pair popcount loops (values are exact:
 products are +/-1 and partial sums are integers well inside f32 range).
 
 Provides mutual-nearest-neighbor matching with Lowe ratio test, fully

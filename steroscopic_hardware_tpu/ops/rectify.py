@@ -4,7 +4,7 @@ The reference assumes pre-rectified synchronized sensors (fixed rig, raw
 frames straight to matching); for arbitrary stereo cameras the engine
 needs calibration handling. This module implements:
 
-* ``bilinear_sample`` / ``remap``  — vectorized image warping on the VPU
+* ``bilinear_sample`` / ``remap``  — vectorized image warping
 * ``undistort_points`` / ``distort_points`` — Brown-Conrady radial
   (k1, k2, k3) + tangential (p1, p2) model
 * ``stereo_rectify`` — Bouguet-style rectifying rotations from a calibrated

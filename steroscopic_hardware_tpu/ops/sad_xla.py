@@ -1,10 +1,10 @@
-"""SAD block-matching disparity in pure XLA (jnp) — TPU-friendly cost-volume
+"""SAD block-matching disparity in pure XLA (jnp) — cost-volume
 formulation, bit-exact with the reference per-pixel algorithm
 (``pkg/despair/sad.go:55-94,205-244``; see ``ops/sad_golden.py`` for the
 contract and the border-clipping derivation).
 
-This is the portable production path (runs on CPU/TPU, fully jittable, batch
-and vmap friendly); ``ops/sad_pallas.py`` is the hand-fused TPU kernel.
+This is the portable path (the CPU backend's, fully jittable, batch and
+vmap friendly) and the reference for ``ops/sad_pallas.py``, the GPU kernel.
 
 Algorithm (exact reformulation of the reference semantics):
   cost[d, y, x] = zero-padded (2h+1)^2 box sum of |L[y,x] - R[y,x-d]|

@@ -7,8 +7,8 @@ worker holds the full frame and windows read across chunk borders. On a
 device mesh the frame is *actually* partitioned, so the chunk overlap
 becomes an explicit halo exchange: each device owns a contiguous row band
 and receives ``h = block_size // 2`` boundary rows from each neighbor via
-``jax.lax.ppermute`` over the ``rows`` mesh axis (ICI neighbor traffic
-only — no all-to-all). Boundary devices receive zeros from ppermute, which
+``jax.lax.ppermute`` over the ``rows`` mesh axis (neighbor traffic only —
+no all-to-all). Boundary devices receive zeros from ppermute, which
 is exactly the reference's zero-contribution row clamping (SURVEY.md
 section 6 item 2), so the sharded result is bit-identical to the
 single-device map.
@@ -28,6 +28,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from steroscopic_hardware_tpu.ops.sad_pallas import disparity_pallas
 from steroscopic_hardware_tpu.ops.sad_xla import disparity_xla
+from steroscopic_hardware_tpu.utils.device import sad_backend
 
 
 def _halo_exchange(x: jnp.ndarray, h: int, axis_name: str) -> jnp.ndarray:
@@ -63,13 +64,12 @@ def disparity_sharded(
     """Row-sharded dense disparity over a device mesh, bit-exact with the
     single-device kernels. H must divide evenly by the mesh axis size.
 
-    Each shard runs the fused Pallas kernel (``backend="auto"`` resolves
-    to Pallas on TPU meshes — the multi-chip path runs the same
-    hand-fused kernel as the single-chip path, not the portable XLA
-    fallback). On CPU meshes ``auto`` uses the XLA kernel;
-    ``backend="pallas"`` + ``interpret=True`` forces the Pallas kernel
-    through the Mosaic interpreter so tests validate the real multi-chip
-    compute path on the 8-device virtual mesh.
+    Each shard runs the same disparity path as a single device
+    (``backend="auto"`` asks ``utils.device.sad_backend`` for the mesh's
+    platform: the Pallas kernel on GPU meshes, XLA on CPU meshes).
+    ``backend="pallas"`` + ``interpret=True`` runs the kernel through the
+    Pallas interpreter so tests validate the multi-device kernel path on
+    the 8-device virtual CPU mesh.
     """
     h = block_size // 2
     H = left.shape[0]
@@ -77,9 +77,7 @@ def disparity_sharded(
     if H % n != 0:
         raise ValueError(f"H={H} not divisible by mesh axis {axis_name}={n}")
     if backend == "auto":
-        backend = (
-            "pallas" if mesh.devices.flat[0].platform == "tpu" else "xla"
-        )
+        backend = sad_backend(mesh.devices.flat[0].platform)
     if backend not in ("pallas", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
 

@@ -1,6 +1,6 @@
 """Mesh construction helpers.
 
-The TPU-native replacement for the reference's parallelism tiers (Go worker
+The device-mesh replacement for the reference's parallelism tiers (Go worker
 pool over image chunks, ``pkg/despair/sad.go:36-53``; two-board serial
 topology): a ``jax.sharding.Mesh`` whose axes carry the same roles —
 ``rows`` = spatial data parallelism over image row bands (the analog of

@@ -1,16 +1,17 @@
 """Multi-host runtime bring-up.
 
 The reference's "multi-host" story is two Zedboards on UART plus a single
-Go process; the TPU-native equivalent is a ``jax.distributed`` pod slice:
+Go process; the equivalent here is a ``jax.distributed`` cluster of GPU
+hosts:
 
 * each host runs the same program and calls :func:`init_distributed`;
 * frame ingest is per-host (each host owns its camera TCP endpoints and
   publishes into its local bus — the sharded equivalent of the two-board
   topology);
 * the global mesh spans all hosts' devices; sharded computations
-  (``parallel/disparity_shard.py``, ``parallel/ba_dist.py``) use ICI
-  collectives within a slice and DCN across slices automatically via the
-  mesh's device order.
+  (``parallel/disparity_shard.py``, ``parallel/ba_dist.py``) use NVLink
+  collectives among a host's cards and the network between hosts,
+  following the mesh's device order.
 
 Single-process (one-host) initialization is a no-op-safe path so the same
 entry point works everywhere.
@@ -71,7 +72,7 @@ def init_distributed(
 def global_mesh(axis_names=("batch", "rows")):
     """Build a mesh over ALL processes' devices, batch-major so that the
     ``rows`` (spatial) axis stays within a host's local devices when
-    possible (halo ppermute rides ICI, not DCN)."""
+    possible (halo ppermute rides NVLink, not the network)."""
     from steroscopic_hardware_tpu.parallel.mesh import make_mesh
 
     n_local = len(jax.local_devices())

@@ -1,4 +1,4 @@
-"""Multi-device SGM: N-way scanline sharding, exact, Pallas per shard.
+"""Multi-device SGM: N-way scanline sharding, exact.
 
 SGM's scanline recursions are sequential along their own axis — but every
 VERTICAL path lives entirely inside one column and every HORIZONTAL path
@@ -10,15 +10,11 @@ H-bands to W-bands, each device sums its two (D, H, W/n) aggregates and
 runs the epilogue (argmin + subpixel parabola) on its W-band — compute,
 collective traffic, and epilogue all scale 1/n, and the result is
 bit-identical to the single-device engine (the aggregates are exact small
-integers; see ``ops.sgm._u8_exact``).
+integers held in float32).
 
-This replaces the round-2 direction-parallel sketch (2 devices max, XLA
-backend only, replicated epilogue — exactly the flaw VERDICT r1 flagged
-for SAD). Per VERDICT r2 directive #3, each shard now runs the SAME
-Pallas kernels as the single-chip engine (``_aggregate_axis_pallas``, the
-MXU transpose-add, the fused epilogue), Mosaic-compiled on TPU meshes and
-interpreted on the CPU test mesh, with the uint8 aggregate tier cutting
-the all_to_all traffic 4x when the penalties qualify.
+This replaces the round-2 direction-parallel sketch (2 devices max,
+replicated epilogue — exactly the flaw VERDICT r1 flagged for SAD). Each
+shard runs the same XLA scans and epilogue as the single-device engine.
 
 Spatial-partition parity with the reference's goroutine chunking
 (``pkg/despair/sad.go:36-53``) for the quality engine, not just SAD.
@@ -33,16 +29,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from steroscopic_hardware_tpu.ops.census import census5x5, popcount32
-from steroscopic_hardware_tpu.ops.sgm import (
-    _aggregate_axis,
-    _aggregate_axis_pallas,
-    _bf16_exact,
-    _epilogue_xla,
-    _round_up,
-    _sgm_epilogue_pallas,
-    _transpose_add_pallas,
-    _u8_exact,
-)
+from steroscopic_hardware_tpu.ops.sgm import _aggregate_axis, _epilogue_xla
 
 
 def _band_volumes_T(left, right, max_disparity: int, i, wn: int, hn: int):
@@ -53,8 +40,8 @@ def _band_volumes_T(left, right, max_disparity: int, i, wn: int, hn: int):
     vertical family, ``cost_h`` (D, W, hn) covering rows [i*hn, (i+1)*hn)
     for the horizontal family. Building 2/n of the volume instead of
     slicing a full build keeps the per-device HBM write proportional to
-    the owned work. Semantics identical to
-    ``census.census_cost_volume_T`` restricted to the band.
+    the owned work. Semantics: ``census.census_cost_volume`` transposed to
+    (D, W, H), restricted to the band.
     """
     D = max_disparity
     cl = census5x5(left.T)    # (W, H) int32 codes
@@ -90,7 +77,7 @@ def _band_volumes_T(left, right, max_disparity: int, i, wn: int, hn: int):
 @functools.partial(
     jax.jit,
     static_argnames=("max_disparity", "P1", "P2", "subpixel", "mesh",
-                     "axis_name", "backend", "interpret"),
+                     "axis_name"),
 )
 def sgm_disparity_sharded(
     left: jnp.ndarray,
@@ -102,85 +89,38 @@ def sgm_disparity_sharded(
     subpixel: bool = True,
     mesh: Mesh,
     axis_name: str = "rows",
-    backend: str = "auto",
-    interpret: bool = False,
 ) -> jnp.ndarray:
     """N-way scanline-sharded SGM over a device mesh, bit-identical to
     the single-device engine, for any axis size n with H % n == 0 and
     W % n == 0 (n in {1, 2, 4, 8} for the standard frame sizes).
-
-    ``backend="auto"`` resolves to the Pallas kernels on TPU meshes and
-    the portable XLA scan elsewhere; ``backend="pallas"`` +
-    ``interpret=True`` runs the real multi-chip compute path through the
-    Mosaic interpreter on CPU test meshes (same pattern as
-    ``disparity_shard.disparity_sharded``).
     """
     H, W = left.shape
     n = mesh.shape[axis_name]
     if H % n != 0 or W % n != 0:
         raise ValueError(
             f"H={H} and W={W} must divide by mesh axis {axis_name}={n}")
-    if backend == "auto":
-        backend = (
-            "pallas" if mesh.devices.flat[0].platform == "tpu" else "xla"
-        )
-    if backend not in ("pallas", "xla"):
-        raise ValueError(f"unknown backend {backend!r}")
     wn, hn = W // n, H // n
     p1, p2 = float(P1), float(P2)
 
     def local_fn(l, r):
         i = jax.lax.axis_index(axis_name)
         cost_w, cost_h = _band_volumes_T(l, r, max_disparity, i, wn, hn)
-        if backend == "pallas":
-            # identical tier ladder to ops.sgm._sgm_impl: uint8 aggregates
-            # when exact (4x less all_to_all traffic), else bf16, else f32
-            if _u8_exact(p1, p2):
-                agg_dtype = jnp.uint8
-            elif _bf16_exact(p1, p2):
-                agg_dtype = jnp.bfloat16
-            else:
-                agg_dtype = jnp.float32
-            # vertical family on the W-band: MXU transpose-add brings the
-            # (D, wn, H) band to the standard frame, then the in-kernel
-            # DMA scan aggregates along H (= axis 1 of (D, H, wn))
-            cost_v = _transpose_add_pallas(
-                cost_w, interpret=interpret, out_dtype=jnp.bfloat16)
-            agg_v = _aggregate_axis_pallas(
-                cost_v, p1, p2, axis=1, interpret=interpret,
-                out_dtype=agg_dtype)                     # (D, H, wn)
-            # horizontal family on the H-band, in the transposed frame
-            # (scan along W = axis 1 of (D, W, hn))
-            agg_ht = _aggregate_axis_pallas(
-                cost_h, p1, p2, axis=1, interpret=interpret,
-                out_dtype=agg_dtype)                     # (D, W, hn)
-        else:
-            # portable scans; same semantic axes (see ops.sgm)
-            cw = cost_w.astype(jnp.float32)
-            ch = cost_h.astype(jnp.float32)
-            agg_v = jnp.transpose(
-                _aggregate_axis(cw, p1, p2, axis=2), (0, 2, 1)
-            )                                            # (D, H, wn)
-            agg_ht = _aggregate_axis(ch, p1, p2, axis=1)  # (D, W, hn)
+        # vertical family on the W-band, horizontal on the H-band; same
+        # semantic axes as ops.sgm
+        cw = cost_w.astype(jnp.float32)
+        ch = cost_h.astype(jnp.float32)
+        agg_v = jnp.transpose(
+            _aggregate_axis(cw, p1, p2, axis=2), (0, 2, 1)
+        )                                                # (D, H, wn)
+        agg_ht = _aggregate_axis(ch, p1, p2, axis=1)     # (D, W, hn)
 
         # reshard horizontal aggregate: H-bands -> W-bands. Each device
-        # sends (n-1)/n of its (D, W, hn) block to neighbors over ICI.
+        # sends (n-1)/n of its (D, W, hn) block to its peers.
         agg_htw = jax.lax.all_to_all(
             agg_ht, axis_name, split_axis=1, concat_axis=2,
             tiled=True,
         )                                                # (D, wn, H)
 
-        if backend == "pallas":
-            # fused epilogue on the W-band: transpose-add + argmin +
-            # subpixel in one pass, the summed volume never reaches HBM
-            D1 = agg_v.shape[0]
-            Hp = _round_up(H, 128)
-            wp = _round_up(wn, 128)
-            av = jnp.pad(agg_v, ((0, 0), (0, Hp - H), (0, wp - wn)))
-            ah = jnp.pad(agg_htw, ((0, 0), (0, wp - wn), (0, Hp - H)))
-            disp = _sgm_epilogue_pallas(
-                av, ah, D=D1, subpixel=subpixel, interpret=interpret)
-            return disp[:H, :wn]
         agg = agg_v + jnp.transpose(agg_htw, (0, 2, 1))
         return _epilogue_xla(agg, subpixel)
 

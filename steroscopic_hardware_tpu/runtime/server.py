@@ -71,7 +71,7 @@ def split_slot(slot: str) -> tuple[str, str]:
     return m.group(1) or "", m.group(2)
 
 _LIVE_HTML = """<!doctype html>
-<html><head><title>stereo tpu — live</title>
+<html><head><title>stereo depth — live</title>
 <style>
 body{font-family:system-ui;margin:2rem;background:#111;color:#eee}
 .row{display:flex;gap:1rem;flex-wrap:wrap}

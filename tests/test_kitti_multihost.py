@@ -67,8 +67,7 @@ def test_batch_kernel_bitexact(rng):
     R = np.stack([np.roll(L[f], -2, axis=1) for f in range(F)])
     out = np.asarray(
         disparity_pallas_batch(
-            L, R, block_size=7, max_disparity=16, row_tile=32,
-            interpret=True,
+            L, R, block_size=7, max_disparity=16, interpret=True,
         )
     )
     for f in range(F):

@@ -136,7 +136,7 @@ def test_pipeline_batches_backlogged_frames(rng):
 
 
 def test_serve_light_fetch_matches_full(rng):
-    """preview_scale/fetch_all=False ("light" tunnel mode) must return the
+    """preview_scale/fetch_all=False ("light" mode) must return the
     SAME newest depth as the full packed layout, plus an RGB preview equal
     to colorizing the k x k integer-mean-pooled depth."""
     from steroscopic_hardware_tpu.ops.colorize import colorize_disparity
@@ -497,8 +497,7 @@ def test_pipeline_latency_decomposition_and_queue_cap(rng):
 
 def test_dedup_uploads_skips_identical_pairs():
     """--dedup-uploads: byte-identical consecutive pairs never reach
-    the compute batch (paused/static feeds; also the dev-tunnel
-    upload-retention mitigation — see tools/leak_probe.py)."""
+    the compute batch (paused/static feeds)."""
     import numpy as np
     import time
 

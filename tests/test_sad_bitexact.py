@@ -7,7 +7,7 @@ Validation chain (each level checked against the one below):
   4. ``disparity_xla``            — jitted XLA path
 Level 1 vs 2 and 2 vs 3 prove the border-clipping derivation; 3 vs 4 proves
 the scan/chunking machinery. The Pallas kernel is tested in
-``test_sad_pallas.py`` against level 4.
+``test_sad_pallas.py`` against level 3.
 """
 
 import numpy as np
@@ -125,7 +125,8 @@ def test_xla_batched(rng):
 
 
 def test_real_pair_crop_vs_golden(stereo_pair_small):
-    """Config #1 anchor (block=7, maxD=64) on a real testdata crop."""
+    """Config #1 anchor (block=7, maxD=64) on a crop of the seeded VGA
+    fixture pair."""
     left, right = stereo_pair_small
     lc = left[200:264, 200:328]
     rc = right[200:264, 200:328]
@@ -142,17 +143,23 @@ def test_full_frame_numpy_vs_xla(stereo_pair_small):
     assert np.array_equal(a, b)
 
 
-def test_middlebury_pair_crop():
-    """im0/im1 (1080p RGB pair): our gray path converts correctly where
+def test_middlebury_pair_crop(stereo_pair_hd, tmp_path):
+    """1080p RGB pair: our gray path converts an RGB PNG correctly where
     the reference's *image.RGBA path yields all-zero gray (gray.go:35-37
     8-bit/16-bit mismatch; SURVEY.md section 6: target the algorithm, not
-    the artifact)."""
+    the artifact). The seeded 1920x1080 fixture stands in for the
+    Middlebury im0/im1 pair, written as RGB PNGs."""
+    from steroscopic_hardware_tpu.io.png import write_png
     from steroscopic_hardware_tpu.ops.gray import load_gray
 
-    left = load_gray("/root/reference/testdata/im0.png")
-    right = load_gray("/root/reference/testdata/im1.png")
+    paths = []
+    for name, img in zip(("im0.png", "im1.png"), stereo_pair_hd):
+        paths.append(str(tmp_path / name))
+        write_png(paths[-1], np.repeat(img[..., None], 3, axis=2))
+    left, right = load_gray(paths[0]), load_gray(paths[1])
     assert left.shape == (1080, 1920)
     assert left.std() > 10  # NOT the all-zero artifact
+    assert np.array_equal(left, stereo_pair_hd[0])
     lc, rc = left[500:564, 600:728], right[500:564, 600:728]
     a = disparity_numpy(lc, rc, 7, 32)
     b = np.asarray(disparity_xla(lc, rc, block_size=7, max_disparity=32))

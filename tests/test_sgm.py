@@ -1,4 +1,11 @@
-"""Census transform and SGM disparity tests."""
+"""Census transform and SGM disparity tests.
+
+The XLA engine is checked against an independent NumPy implementation
+(census codes, Hamming volume, the four scanline recursions, first-minimum
+argmin and the subpixel parabola) over integer and fractional penalties,
+the P2 values around every storage boundary earlier engines used, widths
+that are not multiples of 128, and disparity ranges up to 256.
+"""
 
 import numpy as np
 import jax.numpy as jnp
@@ -73,6 +80,7 @@ def test_sgm_subpixel_within_half_pixel(rng):
 
 
 def test_sgm_on_real_pair_smoke(stereo_pair_small):
+    """A crop of the seeded VGA fixture: valid range, real structure."""
     left, right = stereo_pair_small
     lc = left[180:244, 200:360]
     rc = right[180:244, 200:360]
@@ -98,296 +106,6 @@ def test_sgm_matcher_in_pipeline_protocol(rng):
     assert np.abs(raw[8:-8, 16:48] - 4).mean() < 0.5
 
 
-def test_sgm_pallas_aggregation_matches_xla(rng):
-    """The grid-stepped Pallas aggregation must match the lax.scan path
-    exactly (same op order per element, integer costs in float32)."""
-    import jax.numpy as jnp
-    from steroscopic_hardware_tpu.ops.sgm import (
-        _aggregate_axis,
-        _aggregate_axis_pallas,
-    )
-
-    cost = rng.integers(0, 25, (17, 40, 72)).astype(np.float32)
-    c = jnp.asarray(cost)
-    for axis in (1, 2):
-        want = np.asarray(_aggregate_axis(c, 1.0, 8.0, axis=axis))
-        got = np.asarray(
-            _aggregate_axis_pallas(c, 1.0, 8.0, axis=axis, interpret=True)
-        )
-        assert np.array_equal(got, want), f"axis {axis} mismatch"
-
-
-@pytest.mark.parametrize("epilogue", ["unfused", "fused", "s_unfused"])
-def test_sgm_pallas_backend_end_to_end(rng, epilogue):
-    left = rng.integers(0, 256, (40, 80), dtype=np.uint8)
-    right = np.roll(left, -3, axis=1)
-    a = np.asarray(sgm_disparity(jnp.asarray(left), jnp.asarray(right),
-                                 max_disparity=16, backend="xla"))
-    b = np.asarray(sgm_disparity(jnp.asarray(left), jnp.asarray(right),
-                                 max_disparity=16, backend="pallas",
-                                 interpret=True, epilogue=epilogue))
-    assert np.array_equal(a, b)
-
-
-def test_census_cost_volume_transposed_frame(rng):
-    """census_cost_volume_T must equal the transposed standard volume
-    bit-for-bit (the Hamming cost is invariant under the shared bit
-    permutation that image transposition applies to census codes)."""
-    from steroscopic_hardware_tpu.ops.census import census_cost_volume_T
-
-    left = rng.integers(0, 256, (37, 61), dtype=np.uint8)
-    right = rng.integers(0, 256, (37, 61), dtype=np.uint8)
-    want = np.asarray(
-        census_cost_volume(jnp.asarray(left), jnp.asarray(right),
-                           max_disparity=12)
-    ).transpose(0, 2, 1)
-    got = np.asarray(
-        census_cost_volume_T(jnp.asarray(left), jnp.asarray(right),
-                             max_disparity=12)
-    )
-    assert np.array_equal(got, want)
-
-    # s_major emits the scan-major (W, D, H) layout of the same values,
-    # and the aggregation consumes it transpose-free with identical output
-    from steroscopic_hardware_tpu.ops.sgm import _aggregate_axis_pallas
-
-    got_s = np.asarray(
-        census_cost_volume_T(jnp.asarray(left), jnp.asarray(right),
-                             max_disparity=12, s_major=True)
-    )
-    assert np.array_equal(got_s, got.transpose(1, 0, 2))
-    a_ref = np.asarray(_aggregate_axis_pallas(
-        jnp.asarray(got), 1.0, 8.0, axis=1, interpret=True))
-    a_s = np.asarray(_aggregate_axis_pallas(
-        jnp.asarray(got_s), 1.0, 8.0, axis=1, interpret=True,
-        s_major=True))
-    assert np.array_equal(a_ref, a_s)
-
-
-def test_sgm_pallas_end_to_end_fractional_penalties(rng):
-    """Fractional P1/P2 disable the bf16 volume optimization; the f32
-    pallas pipeline must still match XLA bit-for-bit."""
-    left = rng.integers(0, 256, (40, 80), dtype=np.uint8)
-    right = np.roll(left, -3, axis=1)
-    a = np.asarray(sgm_disparity(jnp.asarray(left), jnp.asarray(right),
-                                 max_disparity=16, P1=0.7, P2=5.3,
-                                 backend="xla"))
-    b = np.asarray(sgm_disparity(jnp.asarray(left), jnp.asarray(right),
-                                 max_disparity=16, P1=0.7, P2=5.3,
-                                 backend="pallas", interpret=True))
-    assert np.array_equal(a, b)
-
-
-def test_pick_col_tile_always_divides():
-    """The lane tile must divide Kp exactly — the grid is Kp // TK wide,
-    so a non-dividing tile silently drops trailing columns."""
-    from steroscopic_hardware_tpu.ops.sgm import _pick_col_tile
-
-    for m in range(1, 40):
-        kp = 128 * m
-        for dp in (8, 32, 96, 160, 264, 512):
-            tk = _pick_col_tile(dp, kp)
-            assert tk % 128 == 0 and kp % tk == 0, (dp, kp, tk)
-
-
-def test_aggregation_bf16_exact_gate():
-    from steroscopic_hardware_tpu.ops.sgm import _bf16_exact, _u8_exact
-
-    assert _bf16_exact(1.0, 8.0)
-    assert not _bf16_exact(0.7, 5.3)
-    # the 2-way-sum bound: 2*(24+P2) <= 256 <=> P2 <= 104 (the 4-way sum
-    # happens in f32 in the fused epilogue and does not constrain storage)
-    assert _bf16_exact(1.0, 104.0)
-    assert not _bf16_exact(1.0, 105.0)
-    assert _u8_exact(1.0, 8.0)
-    assert _u8_exact(1.0, 103.0)
-    assert not _u8_exact(1.0, 104.0)
-    assert not _u8_exact(0.7, 5.3)
-
-
-def test_aggregation_uint8_output_matches_float(rng):
-    """uint8 volume storage (the quarter-bandwidth tier selected for the
-    default P1=1/P2=8) must round-trip the exact integer aggregates."""
-    from steroscopic_hardware_tpu.ops.sgm import (
-        _aggregate_axis,
-        _aggregate_axis_pallas,
-    )
-
-    cost = rng.integers(0, 25, (17, 40, 72), dtype=np.uint8)
-    want = np.asarray(
-        _aggregate_axis(jnp.asarray(cost, jnp.float32), 1.0, 8.0, axis=1)
-    )
-    got = np.asarray(
-        _aggregate_axis_pallas(jnp.asarray(cost), 1.0, 8.0, axis=1,
-                               interpret=True, out_dtype=jnp.uint8)
-    ).astype(np.float32)
-    assert np.array_equal(got, want)
-
-
-def test_sgm_pallas_bf16_tier_end_to_end(rng):
-    """P2=104 falls outside the uint8 gate but inside the relaxed bf16
-    gate; the bf16-stored pallas path must still match XLA exactly."""
-    left = rng.integers(0, 256, (40, 80), dtype=np.uint8)
-    right = np.roll(left, -3, axis=1)
-    a = np.asarray(sgm_disparity(jnp.asarray(left), jnp.asarray(right),
-                                 max_disparity=16, P2=104.0,
-                                 backend="xla"))
-    b = np.asarray(sgm_disparity(jnp.asarray(left), jnp.asarray(right),
-                                 max_disparity=16, P2=104.0,
-                                 backend="pallas", interpret=True))
-    assert np.array_equal(a, b)
-
-
-def test_aggregation_bf16_output_matches_float(rng):
-    """bf16 volume storage must round-trip the exact integer aggregates."""
-    from steroscopic_hardware_tpu.ops.sgm import (
-        _aggregate_axis,
-        _aggregate_axis_pallas,
-    )
-
-    cost = rng.integers(0, 25, (17, 40, 72), dtype=np.uint8)
-    want = np.asarray(
-        _aggregate_axis(jnp.asarray(cost, jnp.float32), 1.0, 8.0, axis=1)
-    )
-    got = np.asarray(
-        _aggregate_axis_pallas(jnp.asarray(cost), 1.0, 8.0, axis=1,
-                               interpret=True, out_dtype=jnp.bfloat16)
-    ).astype(np.float32)
-    assert np.array_equal(got, want)
-
-
-def test_aggregation_uint8_ingest_matches_float(rng):
-    """The Pallas aggregation accepts raw uint8 census costs (the HBM
-    bandwidth path) and must produce bit-identical float32 output."""
-    from steroscopic_hardware_tpu.ops.sgm import (
-        _aggregate_axis,
-        _aggregate_axis_pallas,
-    )
-
-    cost = rng.integers(0, 25, (17, 40, 72), dtype=np.uint8)
-    want = np.asarray(
-        _aggregate_axis(jnp.asarray(cost, jnp.float32), 1.0, 8.0, axis=1)
-    )
-    got = np.asarray(
-        _aggregate_axis_pallas(jnp.asarray(cost), 1.0, 8.0, axis=1,
-                               interpret=True)
-    )
-    assert np.array_equal(got, want)
-
-
-def test_transpose_add_pallas_exact(rng):
-    """The MXU transpose-add kernel is exact in float32 (x*1 + zeros)."""
-    from steroscopic_hardware_tpu.ops.sgm import _transpose_add_pallas
-
-    aT = rng.standard_normal((11, 72, 40)).astype(np.float32) * 100
-    b = rng.standard_normal((11, 40, 72)).astype(np.float32) * 100
-    want = aT.transpose(0, 2, 1) + b
-    got = np.asarray(
-        _transpose_add_pallas(jnp.asarray(aT), jnp.asarray(b),
-                              interpret=True)
-    )
-    assert np.array_equal(got, want)
-
-
-def test_transpose_add_pallas_s_major(rng):
-    """The scan-major variant: aT (B, D, A) + b (A, D, B) -> (A, D, B)
-    with out[a, d, b] = aT[b, d, a] + b[a, d, b], exact — and the u8
-    ingest paths (via-int32 widening) for both operands."""
-    from steroscopic_hardware_tpu.ops.sgm import _transpose_add_pallas
-
-    aT = rng.standard_normal((72, 11, 40)).astype(np.float32) * 100
-    b = rng.standard_normal((40, 11, 72)).astype(np.float32) * 100
-    want = aT.transpose(2, 1, 0) + b
-    got = np.asarray(
-        _transpose_add_pallas(jnp.asarray(aT), jnp.asarray(b),
-                              interpret=True, s_major=True)
-    )
-    assert np.array_equal(got, want)
-
-    # u8 operands (the s_unfused chain's aggregate tier)
-    a8 = rng.integers(0, 200, (72, 11, 40)).astype(np.uint8)
-    b8 = rng.integers(0, 55, (40, 11, 72)).astype(np.uint8)
-    want = a8.transpose(2, 1, 0).astype(np.float32) + b8
-    got = np.asarray(
-        _transpose_add_pallas(jnp.asarray(a8), jnp.asarray(b8),
-                              interpret=True, s_major=True,
-                              out_dtype=jnp.float32)
-    )
-    assert np.array_equal(got, want)
-
-
-def test_sgm_s_unfused_all_tiers(rng):
-    """The fully scan-major unfused chain (zero XLA volume relayouts)
-    is bit-identical to the portable engine across the u8/bf16/f32
-    aggregate tiers and both aggregate widths."""
-    left = rng.integers(0, 256, (40, 80), dtype=np.uint8)
-    right = np.clip(np.roll(left, -3, axis=1).astype(int)
-                    + rng.integers(-2, 3, (40, 80)), 0, 255).astype(np.uint8)
-    for (P1, P2, sub) in [(1.0, 8.0, True), (2.0, 104.0, False),
-                          (1.5, 110.5, True)]:
-        a = np.asarray(sgm_disparity(
-            jnp.asarray(left), jnp.asarray(right), max_disparity=16,
-            P1=P1, P2=P2, subpixel=sub, backend="xla"))
-        b = np.asarray(sgm_disparity(
-            jnp.asarray(left), jnp.asarray(right), max_disparity=16,
-            P1=P1, P2=P2, subpixel=sub, backend="pallas",
-            interpret=True, epilogue="s_unfused"))
-        assert np.array_equal(a, b), (P1, P2, sub)
-
-
-def test_sgm_pallas_fractional_penalties(rng):
-    """Non-integer P1/P2 exercise the SMEM scalar path; results must agree
-    to float tolerance."""
-    import jax.numpy as jnp
-    from steroscopic_hardware_tpu.ops.sgm import (
-        _aggregate_axis,
-        _aggregate_axis_pallas,
-    )
-
-    cost = rng.integers(0, 25, (9, 24, 40)).astype(np.float32)
-    c = jnp.asarray(cost)
-    want = np.asarray(_aggregate_axis(c, 0.7, 5.3, axis=2))
-    got = np.asarray(
-        _aggregate_axis_pallas(c, 0.7, 5.3, axis=2, interpret=True)
-    )
-    assert np.allclose(got, want, atol=1e-4)
-
-
-@pytest.mark.parametrize("epilogue", ["unfused", "fused"])
-def test_sgm_fused_epilogue_matches_xla_no_subpixel(rng, epilogue):
-    """Both Pallas epilogues' raw-argmin paths (subpixel=False) must
-    match the XLA backend exactly, including first-minimum tie-breaks."""
-    left = rng.integers(0, 256, (40, 80), dtype=np.uint8)
-    right = np.roll(left, -3, axis=1)
-    a = np.asarray(sgm_disparity(jnp.asarray(left), jnp.asarray(right),
-                                 max_disparity=16, subpixel=False,
-                                 backend="xla"))
-    b = np.asarray(sgm_disparity(jnp.asarray(left), jnp.asarray(right),
-                                 max_disparity=16, subpixel=False,
-                                 backend="pallas", interpret=True,
-                                 epilogue=epilogue))
-    assert np.array_equal(a, b)
-
-
-def test_sgm_fused_epilogue_winner_at_sweep_borders(rng):
-    """Winners at d=0 and d=D-1 take the no-subpixel branch; the fused
-    epilogue's in-sweep neighbor tracking must agree with the XLA
-    masked-reduction epilogue there (c0/c2 are sentinel values at the
-    borders and must never leak into the output)."""
-    # zero shift -> winners concentrated at d=0; large roll -> d near D-1
-    for shift in (0, -15):
-        left = rng.integers(0, 256, (48, 64), dtype=np.uint8)
-        right = np.roll(left, shift, axis=1)
-        a = np.asarray(sgm_disparity(jnp.asarray(left), jnp.asarray(right),
-                                     max_disparity=16, backend="xla"))
-        for epi in ("unfused", "fused"):
-            b = np.asarray(sgm_disparity(
-                jnp.asarray(left), jnp.asarray(right), max_disparity=16,
-                backend="pallas", interpret=True, epilogue=epi))
-            assert np.array_equal(a, b), (shift, epi)
-            assert np.isfinite(b).all()
-
-
 def test_sgm_lr_left_matches_plain(rng):
     """sgm_disparity_lr's left map must equal sgm_disparity exactly
     (same volume, same argmin/subpixel math)."""
@@ -399,26 +117,12 @@ def test_sgm_lr_left_matches_plain(rng):
     left = rng.integers(0, 256, (40, 80), dtype=np.uint8)
     right = np.roll(left, -3, axis=1)
     a = np.asarray(sgm_disparity(jnp.asarray(left), jnp.asarray(right),
-                                 max_disparity=16, backend="xla"))
+                                 max_disparity=16))
     b, dR = sgm_disparity_lr(jnp.asarray(left), jnp.asarray(right),
-                             max_disparity=16, backend="xla")
+                             max_disparity=16)
     assert np.array_equal(a, np.asarray(b))
     # the right map recovers the same shift over the interior
     assert np.abs(np.asarray(dR)[10:-10, 10:-30] - 3).mean() < 0.5
-
-
-def test_sgm_lr_pallas_matches_xla(rng):
-    from steroscopic_hardware_tpu.ops.sgm import sgm_disparity_lr
-
-    left = rng.integers(0, 256, (40, 80), dtype=np.uint8)
-    right = np.roll(left, -3, axis=1)
-    aL, aR = sgm_disparity_lr(jnp.asarray(left), jnp.asarray(right),
-                              max_disparity=16, backend="xla")
-    bL, bR = sgm_disparity_lr(jnp.asarray(left), jnp.asarray(right),
-                              max_disparity=16, backend="pallas",
-                              interpret=True)
-    assert np.array_equal(np.asarray(aL), np.asarray(bL))
-    assert np.array_equal(np.asarray(aR), np.asarray(bR))
 
 
 def test_sgm_lr_checked_gates_mismatches(rng):
@@ -431,8 +135,7 @@ def test_sgm_lr_checked_gates_mismatches(rng):
     # destroy correspondence in the right half of the right image
     right[:, 48:] = rng.integers(0, 256, (48, 48), dtype=np.uint8)
     disp, valid = sgm_lr_checked(
-        jnp.asarray(left), jnp.asarray(right), max_disparity=16,
-        backend="xla")
+        jnp.asarray(left), jnp.asarray(right), max_disparity=16)
     valid = np.asarray(valid)
     assert valid[8:-8, 8:40].mean() > 0.8      # consistent region survives
     assert valid[8:-8, 56:-8].mean() < 0.5     # uncorrelated region gated
@@ -450,43 +153,141 @@ def test_sgm_matcher_compute_checked(rng):
     assert valid.dtype == bool and valid[8:-8, 8:40].mean() > 0.7
 
 
-@pytest.mark.parametrize("out_dtype", ["uint8", "float32"])
-def test_aggregate_kernel_scan_pad_bitexact(rng, out_dtype):
-    """S >= 256 and S % 32 != 0 triggers the absorbing scan-axis pad
-    (TS=32 on e.g. 1080-row frames); the padded kernel must stay
-    bit-exact vs the unpadded XLA scan — uniform pad rows reset the
-    normalized recursion to its boundary init, so no real row can see
-    them."""
-    from steroscopic_hardware_tpu.ops.sgm import (
-        _aggregate_axis,
-        _aggregate_axis_pallas,
-    )
-
-    S, D, K = 296, 12, 128           # 296 % 32 == 8 -> pads to 320
-    c = rng.integers(0, 25, (D, S, K)).astype(np.uint8)
-    want = np.asarray(_aggregate_axis(
-        jnp.asarray(c.astype(np.float32)), 1.0, 8.0, axis=1))
-    dt = jnp.uint8 if out_dtype == "uint8" else jnp.float32
-    cin = jnp.asarray(c if out_dtype == "uint8"
-                      else c.astype(np.float32))
-    got = np.asarray(_aggregate_axis_pallas(
-        cin, 1.0, 8.0, axis=1, out_dtype=dt, interpret=True))
-    assert got.shape == want.shape
-    assert np.array_equal(got.astype(np.float32), want)
+# -- NumPy reference ------------------------------------------------------
 
 
-def test_sgm_bf16_summed_volume_boundary(rng):
-    """The bf16 summed-volume gate (4*(24+P2) <= 256, P2 <= 40): both
-    sides of the boundary must stay bit-identical to the portable
-    engine (bf16 path at P2=40, f32 path at P2=48)."""
-    left = rng.integers(0, 256, (40, 80), dtype=np.uint8)
-    right = np.clip(np.roll(left, -3, axis=1).astype(int)
-                    + rng.integers(-2, 3, (40, 80)), 0, 255).astype(np.uint8)
-    for P2 in (40.0, 48.0):
-        a = np.asarray(sgm_disparity(
-            jnp.asarray(left), jnp.asarray(right), max_disparity=16,
-            P1=2.0, P2=P2, backend="xla"))
-        b = np.asarray(sgm_disparity(
-            jnp.asarray(left), jnp.asarray(right), max_disparity=16,
-            P1=2.0, P2=P2, backend="pallas", interpret=True))
-        assert np.array_equal(a, b), P2
+def _census_np(img):
+    H, W = img.shape
+    I = img.astype(np.int32)
+    code = np.zeros((H, W), np.uint32)
+    bit = 0
+    for dy in range(-2, 3):
+        for dx in range(-2, 3):
+            if (dy, dx) == (0, 0):
+                continue
+            ys = np.clip(np.arange(H) + dy, 0, H - 1)
+            xs = np.clip(np.arange(W) + dx, 0, W - 1)
+            code |= (I[ys][:, xs] < I).astype(np.uint32) << np.uint32(bit)
+            bit += 1
+    return code
+
+
+def _cost_np(left, right, D):
+    cl, cr = _census_np(left), _census_np(right)
+    H, W = left.shape
+    vol = np.full((D + 1, H, W), 24, np.float32)
+    for d in range(min(D, W - 1) + 1):
+        vol[d, :, d:] = np.bitwise_count(cl[:, d:] ^ cr[:, :W - d])
+    return vol
+
+
+def _scan_np(cost, P1, P2, axis, reverse):
+    """One scanline direction of the SGM recursion, literally."""
+    vol = np.moveaxis(cost, axis, 0)
+    if reverse:
+        vol = vol[::-1]
+    out = np.empty_like(vol)
+    prev = out[0] = vol[0]
+    inf = np.full_like(prev[:1], 1e9)
+    for s in range(1, len(vol)):
+        m = prev.min(0, keepdims=True)
+        up = np.concatenate([prev[1:], inf])
+        dn = np.concatenate([inf, prev[:-1]])
+        best = np.minimum(np.minimum(prev, np.minimum(up, dn) + P1), m + P2)
+        prev = out[s] = vol[s] + best - m
+    if reverse:
+        out = out[::-1]
+    return np.moveaxis(out, 0, axis)
+
+
+def _aggregate_np(cost, P1, P2, axis):
+    return (_scan_np(cost, P1, P2, axis, False)
+            + _scan_np(cost, P1, P2, axis, True))
+
+
+def _sgm_np(left, right, D, P1, P2, subpixel):
+    cost = _cost_np(left, right, D)
+    agg = _aggregate_np(cost, P1, P2, 2) + _aggregate_np(cost, P1, P2, 1)
+    n = agg.shape[0]
+    d = np.argmin(agg, axis=0)
+    if not subpixel:
+        return d.astype(np.float32), agg
+    dc = np.clip(d, 1, n - 2)
+    c0, c1, c2 = (np.take_along_axis(agg, (dc + k)[None], 0)[0]
+                  for k in (-1, 0, 1))
+    denom = np.maximum(c0 - 2 * c1 + c2, np.float32(1e-6))
+    delta = np.clip(np.float32(0.5) * (c0 - c2) / denom, -0.5, 0.5)
+    return np.where((d >= 1) & (d <= n - 2), dc + delta,
+                    d).astype(np.float32), agg
+
+
+def _noisy_pair(rng, h, w, shift):
+    left = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    right = np.clip(np.roll(left, shift, axis=1).astype(int)
+                    + rng.integers(-2, 3, (h, w)), 0, 255).astype(np.uint8)
+    return left, right
+
+
+def test_census_volume_matches_numpy(rng):
+    left, right = _noisy_pair(rng, 37, 61, -3)
+    got = np.asarray(census_cost_volume(jnp.asarray(left),
+                                        jnp.asarray(right),
+                                        max_disparity=12))
+    assert np.array_equal(got.astype(np.float32), _cost_np(left, right, 12))
+
+
+@pytest.mark.parametrize("axis", [1, 2])
+@pytest.mark.parametrize("P1,P2", [(1.0, 8.0), (0.7, 5.3)])
+def test_aggregate_axis_matches_numpy(rng, axis, P1, P2):
+    from steroscopic_hardware_tpu.ops.sgm import _aggregate_axis
+
+    cost = rng.integers(0, 25, (17, 40, 72)).astype(np.float32)
+    got = np.asarray(_aggregate_axis(jnp.asarray(cost), P1, P2, axis=axis))
+    np.testing.assert_array_equal(got, _aggregate_np(cost, P1, P2, axis))
+
+
+@pytest.mark.parametrize(
+    "h,w,D,P1,P2,subpixel,shift",
+    [
+        (40, 80, 16, 1.0, 8.0, True, -3),     # defaults
+        (40, 80, 16, 1.0, 8.0, False, -3),
+        (40, 80, 16, 0.7, 5.3, True, -3),     # fractional penalties
+        (40, 80, 16, 1.5, 110.5, True, -3),
+        (40, 80, 16, 2.0, 40.0, True, -3),    # P2 storage boundaries
+        (40, 80, 16, 2.0, 48.0, True, -3),
+        (40, 80, 16, 1.0, 103.0, False, -3),
+        (40, 80, 16, 1.0, 104.0, True, -3),
+        (40, 80, 16, 1.0, 105.0, True, -3),
+        (48, 64, 16, 1.0, 8.0, True, 0),      # winners at d = 0
+        (48, 64, 16, 1.0, 8.0, True, -15),    # winners near d = D - 1
+        (37, 61, 12, 1.0, 8.0, True, -3),     # odd, non-128 widths
+        (48, 130, 32, 1.0, 8.0, True, -5),
+        (16, 300, 256, 1.0, 8.0, True, -9),   # D at the envelope edge
+        (296, 40, 12, 1.0, 8.0, False, -2),   # long vertical scans
+    ],
+)
+def test_sgm_matches_numpy_reference(rng, h, w, D, P1, P2, subpixel, shift):
+    left, right = _noisy_pair(rng, h, w, shift)
+    want, _ = _sgm_np(left, right, D, P1, P2, subpixel)
+    got = np.asarray(sgm_disparity(jnp.asarray(left), jnp.asarray(right),
+                                   max_disparity=D, P1=P1, P2=P2,
+                                   subpixel=subpixel))
+    assert got.shape == (h, w) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("D", [16, 64])
+def test_sgm_right_map_matches_numpy(rng, D):
+    """The right-referenced map is the first-minimum argmin over the
+    diagonal agg[d, y, xr + d] of the same summed volume."""
+    from steroscopic_hardware_tpu.ops.sgm import sgm_disparity_lr
+
+    left, right = _noisy_pair(rng, 32, 96, -4)
+    _, agg = _sgm_np(left, right, D, 1.0, 8.0, False)
+    n, H, W = agg.shape
+    costR = np.full((n, H, W), np.inf, np.float32)
+    for d in range(n):
+        costR[d, :, :W - d] = agg[d, :, d:]
+    _, dR = sgm_disparity_lr(jnp.asarray(left), jnp.asarray(right),
+                             max_disparity=D)
+    np.testing.assert_array_equal(np.asarray(dR), np.argmin(costR, axis=0))

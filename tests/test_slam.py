@@ -132,8 +132,7 @@ def test_census_frontend_survives_photometric_mismatch(rng):
     sad_deg = degradation(
         lambda a, b: disparity_xla(a, b, block_size=7, max_disparity=32))
     sgm_deg = degradation(
-        lambda a, b: sgm_disparity(a, b, max_disparity=32, subpixel=False,
-                                   backend="xla"))
+        lambda a, b: sgm_disparity(a, b, max_disparity=32, subpixel=False))
     # SAD falls apart; census-based SGM barely moves
     assert sad_deg > 0.25, f"expected SAD to degrade, got {sad_deg:.3f}"
     assert sgm_deg < sad_deg / 3, (
@@ -190,8 +189,7 @@ def test_vo_sgm_frontend_matches_sad_on_clean_sequence(rng):
     assert ates["sad"] < 0.12, ates
     # pyramid mode: half-res SGM disparity, 2x coarser depth
     # quantization before subpixel — tracks the clean sequence within a
-    # relaxed bound (it exists to make full-HD census tracking real-time,
-    # BENCH.md "quality-mode full-HD" note)
+    # relaxed bound (it exists to make full-HD census tracking cheap)
     assert ates["sgm_half"] < 0.2, ates
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
 # CI gate (VERDICT r2 directive #8): one command gates the tree.
 # Mirrors the reference's pipeline (build, test, lint, release smoke —
-# /root/reference/.github/workflows/ci.yml:1-40) with this tree's stages:
+# the reference's .github/workflows/ci.yml:1-40) with this tree's stages:
 #   lint -> native build -> CLI smoke -> CPU bench smoke -> full pytest
 # Usage: tools/ci.sh [--fast]   (--fast runs a pruned pytest selection)
 set -euo pipefail
@@ -22,8 +22,7 @@ echo "ok"
 
 echo "== bench smoke (CPU backend, one JSON line) =="
 BENCH_OUT=$(mktemp)
-JAX_PLATFORMS=cpu JAX_COMPILATION_CACHE_DIR=/tmp/jax_cache \
-    python bench.py > "$BENCH_OUT"
+JAX_PLATFORMS=cpu python bench.py > "$BENCH_OUT"
 python -c '
 import json, sys
 d = json.loads(open(sys.argv[1]).readline())

@@ -2,7 +2,7 @@
 """Golden-vector generator.
 
 The reference generates HDL test vectors by cropping random patches from
-the testdata pair and computing integral-image SAD golden disparities
+a stereo pair and computing integral-image SAD golden disparities
 (``hardware/test.py``; consumed by ``hardware/ez_tb.v`` via $readmemh).
 This tool keeps that workflow: it emits ``.raw`` patch pairs, ``.mem``
 hex golden disparity vectors (one byte per line, the $readmemh format),
@@ -11,7 +11,10 @@ for this framework's regression fixtures and for exercising the original
 Verilog testbenches against our implementation.
 
 Usage: python tools/gen_vectors.py OUTDIR [--n 4] [--size 128]
-       [--block 15] [--disp 64] [--seed 0]
+       [--block 15] [--disp 64] [--seed 0] [--left L.png --right R.png]
+
+Without ``--left``/``--right`` the crops come from the seeded 640x480
+fixture pair (``utils/fixtures.py``, seed ``--seed``).
 """
 
 import argparse
@@ -25,8 +28,7 @@ import numpy as np
 from steroscopic_hardware_tpu.io.pgm import write_pgm
 from steroscopic_hardware_tpu.ops.gray import load_gray
 from steroscopic_hardware_tpu.ops.sad_golden import disparity_numpy
-
-TESTDATA = "/root/reference/testdata"
+from steroscopic_hardware_tpu.utils.fixtures import VGA, stereo_pair
 
 
 def main():
@@ -37,13 +39,15 @@ def main():
     ap.add_argument("--block", type=int, default=15)
     ap.add_argument("--disp", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--left", default=f"{TESTDATA}/L_00001.png")
-    ap.add_argument("--right", default=f"{TESTDATA}/R_00001.png")
+    ap.add_argument("--left", default=None)
+    ap.add_argument("--right", default=None)
     args = ap.parse_args()
 
     os.makedirs(args.outdir, exist_ok=True)
-    left = load_gray(args.left)
-    right = load_gray(args.right)
+    if args.left and args.right:
+        left, right = load_gray(args.left), load_gray(args.right)
+    else:
+        left, right, _ = stereo_pair(VGA, args.seed)
     rng = np.random.default_rng(args.seed)
     H, W = left.shape
     s = args.size

@@ -1,13 +1,16 @@
 #!/usr/bin/env python
 """Full parameter-sweep runner (BASELINE config #2): every block size
-3-31 (odd) x max disparity 16-256 (step 16) on the testdata stereo pairs,
-with optional left-right consistency, reporting Mpix/s per configuration.
+3-31 (odd) x max disparity 16-256 (step 16) on seeded fixture pairs
+(``utils/fixtures.py``), with optional left-right consistency, reporting
+Mpix/s per configuration. Host time around a synchronous ``compute`` (it
+returns a host array), mean of ``-n`` runs; the device is named in every
+record.
 
 240 configurations = 240 kernel compiles on the first run; the persistent
 compilation cache (JAX_COMPILATION_CACHE_DIR) makes reruns cheap. Use
 --blocks/--disps to sweep subsets.
 
-  python tools/run_sweep.py --pairs 00001 --blocks 7,15 --disps 64,128
+  python tools/run_sweep.py --seeds 0 --blocks 7,15 --disps 64,128
 """
 
 import argparse
@@ -17,17 +20,15 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 
 import numpy as np
-
-TESTDATA = "/root/reference/testdata"
-ALL_PAIRS = ["00001", "00002", "00335", "01000"]
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--pairs", default=",".join(ALL_PAIRS))
+    ap.add_argument("--seeds", default="0,1,2,3",
+                    help="fixture pair seeds")
+    ap.add_argument("--size", default="640x480", help="WIDTHxHEIGHT")
     ap.add_argument("--blocks", default=",".join(str(b) for b in range(3, 32, 2)))
     ap.add_argument("--disps", default=",".join(str(d) for d in range(16, 257, 16)))
     ap.add_argument("--lr-check", action="store_true")
@@ -41,20 +42,24 @@ def main():
 
     import jax
 
-    from steroscopic_hardware_tpu.ops.gray import load_gray
     from steroscopic_hardware_tpu.ops.lr_check import disparity_lr_checked
     from steroscopic_hardware_tpu.models.blockmatch import (
         BlockMatcher,
         SGMMatcher,
     )
+    from steroscopic_hardware_tpu.utils.device import enable_compile_cache
+    from steroscopic_hardware_tpu.utils.fixtures import (
+        parse_size,
+        stereo_pair,
+    )
     from steroscopic_hardware_tpu.utils.params import Parameters
 
+    enable_compile_cache()
+    dev = jax.devices()[0]
     pairs = {}
-    for p in args.pairs.split(","):
-        pairs[p] = (
-            jax.device_put(load_gray(f"{TESTDATA}/L_{p}.png")),
-            jax.device_put(load_gray(f"{TESTDATA}/R_{p}.png")),
-        )
+    for seed in args.seeds.split(","):
+        left, right, _ = stereo_pair(parse_size(args.size), int(seed))
+        pairs[seed] = (jax.device_put(left), jax.device_put(right))
 
     if args.engine == "sgm":
         matcher = SGMMatcher()
@@ -80,6 +85,7 @@ def main():
                     "ms": round(dt * 1000, 2),
                     "mpix_s": round(out.size / 1e6 / dt, 1),
                     "compile_s": round(compile_s, 1),
+                    "device_kind": dev.device_kind,
                 }
                 if args.lr_check:
                     if args.engine == "sgm":

@@ -56,14 +56,12 @@ def main():
                     help="comma-separated extra server args")
     args = ap.parse_args()
 
-    env = os.environ.copy()
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
     extra = [a for a in args.extra_args.split(",") if a]
     with_slam = "--slam" in extra
     proc = subprocess.Popen(
         [sys.executable, "-m", "steroscopic_hardware_tpu",
          "--port", str(PORT), "--no-open", "--fps", "60"] + extra,
-        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL, env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
     )
     samples = []
     try:
